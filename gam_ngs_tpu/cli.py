@@ -29,10 +29,11 @@ def _add_create(sub):
     p.add_argument("--debug", action="store_true")
     p.add_argument("--device", choices=["auto", "tpu", "native", "oracle"],
                    default="auto",
-                   help="block-construction engine: 'tpu' = JAX device "
-                        "sort/join (ops/device_join.py), 'native' = C++ "
-                        "scan, 'oracle' = exact Python scan, 'auto' = "
-                        "native if built else tpu")
+                   help="block-construction engine: 'tpu' = JAX "
+                        "sort/join on the default JAX device "
+                        "(ops/device_join.py), 'native' = C++ scan, "
+                        "'oracle' = exact Python scan, 'auto' = native "
+                        "if built else the JAX join")
     _add_dist(p)
     return p
 
@@ -63,10 +64,12 @@ def _add_merge(sub):
     p.add_argument("--output-graphs", action="store_true")
     p.add_argument("--output", default="out")
     p.add_argument("--debug", action="store_true")
-    p.add_argument("--device", choices=["auto", "tpu", "cpu", "oracle"],
+    p.add_argument("--device", choices=["auto", "gpu", "cpu", "oracle"],
                    default="auto",
-                   help="banded-SW engine: batched device kernel or the "
-                        "exact host oracle")
+                   help="banded-SW engine: 'gpu' = the CUDA kernel (fails "
+                        "without a GPU), 'cpu' = the XLA forward on the "
+                        "CPU, 'auto' = the CUDA kernel on a GPU else the "
+                        "XLA forward, 'oracle' = the exact host oracle")
     p.add_argument("--checkpoint", action="store_true",
                    help="partition-level resume via <output>.ckpt/")
     _add_dist(p)
@@ -76,7 +79,8 @@ def _add_merge(sub):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="gam",
-        description="TPU-native genomic assemblies merger (GAM-NGS capabilities)")
+        description="GPU-accelerated genomic assemblies merger (GAM-NGS "
+                    "capabilities)")
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_create(sub)
     _add_merge(sub)
@@ -89,6 +93,11 @@ def main(argv=None) -> int:
                       help="BAM files or bam-list files")
 
     args = ap.parse_args(argv)
+    if getattr(args, "device", "") == "cpu":
+        import jax
+
+        # before any backend exists: the CPU platform, not just XLA:CPU
+        jax.config.update("jax_platforms", "cpu")
 
     if getattr(args, "coordinator", ""):
         from .parallel.distributed import init_distributed
@@ -96,6 +105,11 @@ def main(argv=None) -> int:
         pid, n = init_distributed(args.coordinator, args.num_processes,
                                   args.process_id)
         print(f"[main] jax.distributed initialized: process {pid}/{n}")
+    if args.cmd in ("create", "merge"):
+        # after jax.distributed: it must precede the first backend
+        from .ops.bsw_batch import enable_compilation_cache
+
+        enable_compilation_cache()
 
     if args.cmd == "create":
         from .models.create import CreateOptions, run_create
@@ -117,31 +131,25 @@ def main(argv=None) -> int:
     if args.cmd == "merge":
         from .models.merge import MergeOptions, run_merge
         engine = None
-        if args.device == "cpu":
+        if args.device != "oracle":
             import jax
 
-            try:  # force the CPU platform, not just the XLA backend
-                jax.config.update("jax_platforms", "cpu")
-            except Exception:
-                pass
-        if args.device != "oracle":
             from .ops.bsw_batch import BswEngine
 
-            backend = {"auto": "auto", "tpu": "pallas",
+            if args.device == "gpu" and jax.default_backend() != "gpu":
+                print(f"[error] --device gpu: no GPU (JAX backend is "
+                      f"{jax.default_backend()!r})", file=sys.stderr)
+                return 1
+            backend = {"auto": "auto", "gpu": "cuda",
                        "cpu": "xla"}[args.device]
             mesh = None
-            try:
-                import jax
+            # multi-process runs shard by graph partition, each host
+            # aligning its own batches: the engine mesh must be LOCAL
+            # (a global mesh would need lockstep calls across hosts)
+            if jax.process_count() == 1 and len(jax.devices()) > 1:
+                from .parallel import device_mesh
 
-                # multi-process runs shard by graph partition, each host
-                # aligning its own batches: the engine mesh must be LOCAL
-                # (a global mesh would need lockstep calls across hosts)
-                if (jax.process_count() == 1 and len(jax.devices()) > 1):
-                    from .parallel import device_mesh
-
-                    mesh = device_mesh()
-            except Exception:
-                mesh = None
+                mesh = device_mesh()
             engine = BswEngine(backend=backend, mesh=mesh)
         run_merge(MergeOptions(
             master_bam_file=args.master_bam,

@@ -26,9 +26,10 @@ class CreateOptions:
     no_multiplicity_filter: bool = False
     output_file_prefix: str = "out"
     debug: bool = False
-    # block-construction engine: "auto" (native if built, else tpu),
-    # "native" (C++ scan), "tpu" (JAX device join, ops/device_join.py),
-    # "oracle" (exact Python scan)
+    # block-construction engine: "auto" (native if built, else the JAX
+    # join), "native" (C++ scan), "tpu" (JAX join on the default device,
+    # ops/device_join.py; renamed in ROADMAP D7), "oracle" (exact
+    # Python scan)
     engine: str = "auto"
 
 

@@ -805,9 +805,10 @@ GamBlocks* gamio_find_blocks(
 // ---------------------------------------------------------------------------
 // Banded-SW traceback walk over a direction matrix.
 // Mirrors gam_ngs_tpu.ops.bsw_batch._traceback_from_dirs exactly.
-// dirs layout: packed=0 -> dense uint8 (XW, YP) row-major for one
-// problem; packed=1 -> int32 planes (XW/16, YP): row i's code is
-// (plane[i>>4][j] >> ((i & 15) * 2)) & 3.
+// dirs layout: cpl=0 -> dense uint8 (XW, YP) row-major for one problem
+// (dirs_stride = YP); cpl>0 -> the GPU kernel's step-major uint16
+// plane (T, 32): cell (x, y) sits at step t = 2x+y, slot k = t/2 - x,
+// word [t][k / cpl], bits 2*(k % cpl) (ops/bsw_cuda.py).
 // Edit codes: GAP_A=0, GAP_B=1, MATCH=2, MISMATCH=3 (editops.py).
 // Returns the number of edits written into out_edits (caller provides
 // a buffer of at least 2 * (XW + YS) bytes), plus matches/x/pos via
@@ -815,7 +816,7 @@ GamBlocks* gamio_find_blocks(
 // reverses (same as the Python implementation's final reverse).
 // ---------------------------------------------------------------------------
 
-int64_t gamio_traceback(const void* dirs, int32_t packed, int64_t dirs_stride,
+int64_t gamio_traceback(const void* dirs, int32_t cpl, int64_t dirs_stride,
                         int32_t band, int32_t max_i, int32_t max_j,
                         int32_t begin_a, int32_t begin_b,
                         const uint8_t* a, int64_t a_len,
@@ -829,12 +830,13 @@ int64_t gamio_traceback(const void* dirs, int32_t packed, int64_t dirs_stride,
   int32_t pos = begin_a + x + y - band;
   int64_t n = 0, matches = 0;
   const uint8_t* d8 = (const uint8_t*)dirs;
-  const int32_t* d32 = (const int32_t*)dirs;
+  const uint16_t* d16 = (const uint16_t*)dirs;
   while (x >= 0 && y >= 0 && pos >= 0 && n < out_cap) {
     int32_t dcode;
-    if (packed)
-      dcode = (d32[(int64_t)(x >> 4) * dirs_stride + y] >> ((x & 15) * 2)) & 3;
-    else
+    if (cpl > 0) {
+      const int32_t t = 2 * x + y, k = (t >> 1) - x;
+      dcode = (d16[(int64_t)t * 32 + k / cpl] >> (2 * (k % cpl))) & 3;
+    } else
       dcode = d8[(int64_t)x * dirs_stride + y];
     if (dcode == 0) {  // diag
       uint8_t ca = a[pos], cb = b[begin_b + x];

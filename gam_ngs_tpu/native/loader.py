@@ -182,11 +182,12 @@ def find_blocks_native(m_cols: tuple, s_cols: tuple, min_block_size: int):
         lib.gamio_free_blocks(h)
 
 
-def traceback_native(dirs: np.ndarray, elem_offset: int, stride: int,
-                     packed: bool, band: int, max_i: int, max_j: int,
-                     begin_a: int, begin_b: int, a: np.ndarray,
-                     b: np.ndarray):
-    """Banded-SW traceback walk in C++; None if the lib is unavailable.
+def traceback_native(dirs: np.ndarray, cpl: int, stride: int, band: int,
+                     max_i: int, max_j: int, begin_a: int, begin_b: int,
+                     a: np.ndarray, b: np.ndarray):
+    """Banded-SW traceback walk in C++ over ONE problem's directions;
+    None if the lib is unavailable.  cpl=0: dense uint8 (XW, YP) with
+    row stride `stride`; cpl>0: the GPU kernel's (T, 32) uint16 plane.
 
     Returns (edits uint8 array in forward order, matches, x, pos).
     """
@@ -198,10 +199,10 @@ def traceback_native(dirs: np.ndarray, elem_offset: int, stride: int,
     matches = ctypes.c_int64()
     x = ctypes.c_int32()
     pos = ctypes.c_int32()
-    ptr = dirs.ctypes.data + elem_offset * dirs.itemsize
+    dirs = np.ascontiguousarray(dirs)
     n = lib.gamio_traceback(
-        ptr, int(packed), stride, band, max_i, max_j, begin_a, begin_b,
-        a, len(a), b, len(b), out, cap, ctypes.byref(matches),
+        dirs.ctypes.data, int(cpl), stride, band, max_i, max_j, begin_a,
+        begin_b, a, len(a), b, len(b), out, cap, ctypes.byref(matches),
         ctypes.byref(x), ctypes.byref(pos))
     return out[:n][::-1].copy(), int(matches.value), int(x.value), \
         int(pos.value)

@@ -5,7 +5,7 @@ Reference semantics reproduced exactly:
   * Block::findBlocks   (/root/reference/lib/src/assembly/Block.cc:470)
 
 The reference streams the slave BAM through a per-read hash-map lookup
-and a sequential first-fit active-block list.  The TPU formulation
+and a sequential first-fit active-block list.  The device formulation
 (SURVEY.md §2.3 / §7 phase 2) recasts the whole stream as array
 programs over HBM-resident columns:
 

@@ -10,11 +10,11 @@ of the run) are concatenated into ONE flat row stream and counted by a
 single jitted dispatch returning one stacked (3, J) array — one
 upload, one kernel, one download.
 
-TPU-shape notes: rows are laid out (R/LANES, LANES) — large 1-D
-tensors are a TPU-compiler worst case (a (512K,) cumsum took ~10 min
-to compile remotely; the 2-D form compiles in seconds).  Jobs are
-contiguous row runs, so the segment reduction is a per-row cumsum, an
-exclusive cumsum of row totals, and two J-sized gathers — no scatter.
+Layout: rows are laid out (R/LANES, LANES) (a 2-D form kept from the
+first device this ran on; ROADMAP S6 measures it on the GPU).  Jobs
+are contiguous row runs, so the segment reduction is a per-row cumsum,
+an exclusive cumsum of row totals, and two J-sized gathers — no
+scatter.
 Job scalars are expanded to per-row arrays on the host (cheap numpy
 broadcasts) instead of a device gather.  Row and job counts pad to
 powers of two so the whole pipeline compiles O(log) distinct shapes.
@@ -498,8 +498,8 @@ def _count_jobs_resident(jobs: list[dict], mesh=None, defer: bool = False):
         WIRE["dispatches"] += 1
         # the first call per shape pays trace + compile (or a
         # persistent-cache load) before its ASYNC dispatch returns —
-        # timing it separates cache misses (tens of seconds remote)
-        # from hits (sub-second) in .metrics.json
+        # timing it separates cache misses (compile seconds) from
+        # hits (sub-second) in .metrics.json
         t0 = time.perf_counter()
         res = kern(*get_arena(), *arrs)
         _note_shape((R, J, T2), time.perf_counter() - t0)

@@ -1,2 +1,2 @@
-from .mesh import device_mesh, mesh_axes
+from .mesh import device_mesh
 from .step import make_pipeline_step, dryrun_step

@@ -6,12 +6,15 @@ data-parallel — the batch axis is sharded over every device, and the
 only collectives are reductions of library statistics / global counters
 (psum over the whole mesh) plus gathers of per-partition results.
 
-The DP band axis (301 lanes) is deliberately NOT sharded across chips:
-one band row fits in a fraction of a single core's VPU, so splitting it
-would turn every scan step into an ICI round-trip.  Long alignments are
+The mesh is one flat axis.  The cards of one host reach each other
+all-to-all at the same rate (NVLink), so there is no topology for a
+second axis to follow.
+
+The DP band axis (301 lanes) is deliberately NOT sharded across
+devices: one band row is a few hundred integers, so splitting it would
+turn every DP step into a cross-device exchange.  Long alignments are
 instead decomposed in time (chained windows, ops.bsw_batch) and across
-problems in space.  This mirrors the scaling-book recipe: pick the mesh,
-annotate shardings on the batch axis, let XLA insert the psums.
+problems in space.
 """
 
 from __future__ import annotations
@@ -19,26 +22,10 @@ from __future__ import annotations
 import numpy as np
 
 DATA_AXIS = "part"   # graph-partition / problem-batch axis
-HOST_AXIS = "host"   # outer axis for multi-host layouts
-
-
-def mesh_axes(n_devices: int) -> tuple[int, int]:
-    """Factor n into (host-like, chip-like) axes: outer = the largest
-    divisor ≤ √n (8 → (2, 4), 6 → (2, 3), 7 → (1, 7))."""
-    outer = 1
-    for d in range(1, int(np.sqrt(n_devices)) + 1):
-        if n_devices % d == 0:
-            outer = d
-    return (outer, n_devices // outer)
 
 
 def device_mesh(n_devices: int | None = None):
-    """Build a 2D `(host, part)` Mesh over the first n devices.
-
-    Both axes are used data-parallel (batch sharded over the full
-    mesh); keeping two named axes lets multi-host layouts map `host`
-    onto DCN and `part` onto ICI without re-annotating the step.
-    """
+    """Build a 1-D `(part,)` Mesh over the first n local devices."""
     import jax
     from jax.sharding import Mesh
 
@@ -46,6 +33,4 @@ def device_mesh(n_devices: int | None = None):
     n = n_devices or len(devs)
     if len(devs) < n:
         raise RuntimeError(f"need {n} devices, have {len(devs)}")
-    h, p = mesh_axes(n)
-    arr = np.array(devs[:n]).reshape(h, p)
-    return Mesh(arr, (HOST_AXIS, DATA_AXIS))
+    return Mesh(np.array(devs[:n]), (DATA_AXIS,))

@@ -1,7 +1,7 @@
 """The sharded device pipeline step: batched DP + library statistics.
 
 One jitted function covering the framework's two device workloads,
-laid out over a 2D `(host, part)` mesh:
+laid out over the 1-D `(part,)` mesh:
 
   * the batched banded-SW forward (ops.bsw_batch.forward_builder) with
     the problem batch sharded over the whole mesh — the gam-merge
@@ -11,13 +11,13 @@ laid out over a 2D `(host, part)` mesh:
     exact sufficient statistics behind MultiBamReader's Welford stream,
     reference lib/src/bam/MultiBamReader.cc:346-430) over a sharded
     read table, reduced to replicated outputs — XLA inserts the psums
-    across ICI/DCN from the sharding annotations alone;
+    from the sharding annotations alone;
   * a replicated scalar summary (total best score) forcing a full-mesh
     reduction, standing in for the reference's global counters.
 
 No tensor/pipeline parallelism is used on purpose: the DP band (301
-lanes) fits in one core, so inter-chip model sharding would only add
-latency.  See parallel.mesh for the rationale.
+lanes) is tiny, so sharding it across devices would only add latency.
+See parallel.mesh for the rationale.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import functools
 import numpy as np
 
 from ..ops.bsw_batch import forward_builder
-from .mesh import DATA_AXIS, HOST_AXIS
+from .mesh import DATA_AXIS
 
 
 def make_pipeline_step(mesh, B: int, XW: int, AW: int, band: int,
@@ -64,7 +64,7 @@ def make_pipeline_step(mesh, B: int, XW: int, AW: int, band: int,
         return (dirs, last_row, diag_vals, lib_count, lib_sum,
                 lib_sumsq, total_best)
 
-    batch = NamedSharding(mesh, P((HOST_AXIS, DATA_AXIS)))
+    batch = NamedSharding(mesh, P(DATA_AXIS))
     repl = NamedSharding(mesh, P())
     in_sh = (batch,) * 7 + (batch, batch, batch)
     out_sh = (batch, batch, batch, repl, repl, repl, repl)

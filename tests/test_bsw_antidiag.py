@@ -1,12 +1,12 @@
-"""Anti-diagonal (skewed-band) kernel vs the exact oracle.
+"""Edge semantics of the fused device path vs the exact oracle.
 
-The fused device path selects the anti-diagonal kernel by default
-(ops/bsw_pallas.py pallas_forward_antidiag_raw); these tests pin that
-selection and exercise the edge semantics the row kernel handled with
-its full/lean split — force_start/force_end quirk lanes
-(banded_smith_waterman.cc:116,201), begin_a < 0 tail windows
-(PctgBuilder.cc:1549), x_size <= FORCE_MAXGAP_LEN underflow windows —
-at both band=30 and the production band=150, in interpret mode on CPU.
+The GPU kernel (ops/bsw_cuda.cu) steps the band along anti-diagonals
+and switches per problem between an exact body and a lean one; these
+cases pin the semantics that split must preserve — force_start/
+force_end quirk lanes (banded_smith_waterman.cc:116,201), begin_a < 0
+tail windows (PctgBuilder.cc:1549), x_size <= FORCE_MAXGAP_LEN underflow
+windows — at band=30 and the production band=150.  Here they run the
+XLA fused path on the CPU; test_bsw_gpu.py runs them on the card.
 """
 
 import numpy as np
@@ -25,16 +25,20 @@ def assert_same(aln1, aln2, label=""):
         assert aln1.edits.tolist() == aln2.edits.tolist(), label
 
 
-ENG30 = BswEngine(band=30, backend="pallas", traceback="device")
-ENG150 = BswEngine(band=150, backend="pallas", traceback="device")
+ENG30 = BswEngine(band=30, backend="xla", traceback="device",
+                  fetch="edits")
+ENG150 = BswEngine(band=150, backend="xla", traceback="device",
+                   fetch="edits")
 
 
 def test_antidiag_selected():
-    assert ENG30._use_antidiag()
-    assert ENG150._use_antidiag()
-    assert not BswEngine(band=30, backend="pallas",
-                         kernel="row")._use_antidiag()
-    assert not BswEngine(band=30, backend="xla")._use_antidiag()
+    """On the CPU "auto" resolves to the XLA forward with the host walk;
+    the fused device path is selected explicitly."""
+    auto = BswEngine(band=30)
+    assert auto.kernel == "xla"
+    assert auto._resolve_traceback() == "host"
+    assert not auto._resolve_lean()
+    assert ENG30.kernel == "xla" and ENG30._resolve_traceback() == "device"
 
 
 def mutate(rng, seq, sub=0.03, ins=0.012, dele=0.012):
@@ -84,22 +88,16 @@ def test_band150_production_shapes():
 
 def test_force_end_underflow_windows():
     """x_size <= FORCE_MAXGAP_LEN + force_end: the reference's unsigned
-    window bound wraps and every diagonal candidate is excluded.  The
-    engine routes xw=128 buckets to the row kernel (ANTI_MIN_XW);
-    overriding the threshold pins the ANTI-DIAGONAL kernel on these
-    tiny windows too."""
+    window bound wraps and every diagonal candidate is excluded — by
+    the device find-max and by the host one alike."""
     rng = np.random.default_rng(73)
     a = rng.integers(0, 4, size=120).astype(np.uint8)
     problems = []
     for xs in (2, 5, 10, 11, 12):
         problems.append((a, 0, len(a) - 1, a[:60].copy(), 0, xs - 1,
                          False, True))
-    for eng in (ENG30,
-                _anti_small := BswEngine(band=30, backend="pallas",
-                                         traceback="device")):
-        eng_label = "row-bucket" if eng is ENG30 else "anti-forced"
-        if eng is not ENG30:
-            eng.ANTI_MIN_XW = 128
+    for eng in (ENG30, BswEngine(band=30, backend="xla", traceback="host")):
+        eng_label = eng._resolve_traceback()
         got = eng.align_many(problems)
         for k, pr in enumerate(problems):
             assert_same(got[k], bsw_align(*pr, band=30),
@@ -107,8 +105,8 @@ def test_force_end_underflow_windows():
 
 
 def test_negative_begin_a_no_fallback():
-    """begin_a < 0 batches run the SAME anti-diagonal shape (the row
-    form needed an all-full fallback kernel)."""
+    """begin_a < 0 problems share a batch with ordinary ones (the GPU
+    kernel keeps its exact body for them alone)."""
     rng = np.random.default_rng(74)
     g = rng.integers(0, 4, size=500).astype(np.uint8)
     a = g[:280].copy()
@@ -136,9 +134,9 @@ def test_force_start_deep_pos0():
 
 
 def test_edits_fetch_matches_lean():
-    eng_e = BswEngine(band=30, backend="pallas", traceback="device",
+    eng_e = BswEngine(band=30, backend="xla", traceback="device",
                       fetch="edits")
-    eng_l = BswEngine(band=30, backend="pallas", traceback="device",
+    eng_l = BswEngine(band=30, backend="xla", traceback="device",
                       fetch="lean")
     rng = np.random.default_rng(76)
     a = rng.integers(0, 4, size=260).astype(np.uint8)
@@ -161,7 +159,7 @@ def test_resident_arena_matches_oracle():
     from gam_ngs_tpu.io.fasta import reverse_complement
 
     rng = np.random.default_rng(91)
-    eng = BswEngine(band=30, backend="pallas", traceback="device",
+    eng = BswEngine(band=30, backend="xla", traceback="device",
                     fetch="edits")
     c0 = rng.integers(0, 5, size=240).astype(np.uint8)
     c1 = mutate(rng, c0)
@@ -192,7 +190,7 @@ def test_resident_arena_lean_fetch():
     from gam_ngs_tpu.ops.editops import first_match_pos, last_match_pos
 
     rng = np.random.default_rng(92)
-    eng = BswEngine(band=30, backend="pallas", traceback="device",
+    eng = BswEngine(band=30, backend="xla", traceback="device",
                     fetch="lean")
     c0 = rng.integers(0, 4, size=300).astype(np.uint8)
     c1 = mutate(rng, c0)

@@ -1,4 +1,7 @@
-"""Pallas banded-SW kernel vs the exact oracle (interpret mode on CPU)."""
+"""Fused device path (forward -> device find-max -> lockstep walk, one
+dispatch) vs the exact oracle.  On the CPU the fused path runs the XLA
+forward; the GPU kernel takes the same path on the card (tests marked
+`gpu` in test_bsw_gpu.py)."""
 
 import numpy as np
 import pytest
@@ -15,7 +18,7 @@ def assert_same(aln1, aln2, label=""):
     assert aln1.edits.tolist() == aln2.edits.tolist(), label
 
 
-ENGINE = BswEngine(band=30, backend="pallas")
+ENGINE = BswEngine(band=30, backend="xla", traceback="device")
 
 
 def mutate(rng, seq, sub=0.02, ins=0.01, dele=0.01):
@@ -77,7 +80,8 @@ def test_offset_prefix_divergent_tail():
     assert_same(ENGINE.align_one(*pr), bsw_align(*pr, band=30))
 
 
-DEVICE_TB = BswEngine(band=30, backend="pallas", traceback="device")
+DEVICE_TB = BswEngine(band=30, backend="xla", traceback="device",
+                      fetch="edits")
 
 
 def test_device_traceback_matches_oracle():
@@ -108,7 +112,7 @@ def test_device_traceback_not_found_and_empty():
 def test_negative_begin_a_forces_full_rows():
     """Reference tail alignments may pass begin_a < 0
     (PctgBuilder.cc:1549): pos==0 lanes then appear at arbitrary row
-    depth, so the engine must select the all-full kernel variant; the
+    depth (the GPU kernel keeps its exact body for such problems); the
     result must stay cell-exact vs the oracle."""
     rng = np.random.default_rng(33)
     g = rng.integers(0, 4, size=400).astype(np.uint8)
@@ -127,10 +131,9 @@ def test_negative_begin_a_forces_full_rows():
 
 
 def test_deep_rows_lean_tiles_exact():
-    """Problems far longer than the band: most tiles take the LEAN
-    body (constant-slope scan, no pos==0 branches) — must be
-    cell-exact, including per-problem x_size variation in one batch
-    and matches landing in deep rows."""
+    """Problems far longer than the band (the GPU kernel's lean body
+    covers most steps): cell-exact, including per-problem x_size
+    variation in one batch and matches landing in deep rows."""
     rng = np.random.default_rng(34)
     probs = []
     for k, n in enumerate((700, 1000, 430)):
@@ -151,7 +154,7 @@ def test_lean_fetch_matches_oracle():
     from gam_ngs_tpu.ops.bsw_ref import bsw_align
     from gam_ngs_tpu.ops.editops import first_match_pos, last_match_pos
 
-    eng = BswEngine(band=25, backend="pallas", traceback="device",
+    eng = BswEngine(band=25, backend="xla", traceback="device",
                     fetch="lean")
     rng = np.random.default_rng(9)
     probs = []
@@ -220,7 +223,7 @@ def test_lean_merge_outputs_identical(tmp_path):
         output_file_prefix=str(tmp_path / "out")), log=lambda *_: None)
     blobs = {}
     for tag, eng in (("seq", None),
-                     ("lean", BswEngine(backend="pallas",
+                     ("lean", BswEngine(backend="xla",
                                         traceback="device",
                                         fetch="lean"))):
         run_merge(MergeOptions(

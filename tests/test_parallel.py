@@ -2,21 +2,20 @@
 
 import numpy as np
 
-from gam_ngs_tpu.parallel import device_mesh, dryrun_step, mesh_axes
-from gam_ngs_tpu.parallel.mesh import DATA_AXIS, HOST_AXIS
+from gam_ngs_tpu.parallel import device_mesh, dryrun_step
+from gam_ngs_tpu.parallel.mesh import DATA_AXIS
 
 
 def test_mesh_axes():
-    assert mesh_axes(8) == (2, 4)
-    assert mesh_axes(6) == (2, 3)
-    assert mesh_axes(7) == (1, 7)
-    assert mesh_axes(1) == (1, 1)
+    """One flat data axis at every device count (no host/chip split)."""
+    for n in (1, 4, 7, 8):
+        assert device_mesh(n).axis_names == (DATA_AXIS,)
 
 
 def test_mesh_shape():
     mesh = device_mesh(8)
-    assert mesh.devices.shape == (2, 4)
-    assert mesh.axis_names == (HOST_AXIS, DATA_AXIS)
+    assert mesh.devices.shape == (8,)
+    assert mesh.axis_names == (DATA_AXIS,)
 
 
 def test_dryrun_step_runs_and_validates():
@@ -299,16 +298,16 @@ def test_sharded_partition_ingestion_matches_sequential(tmp_path):
 
 
 def test_engine_mesh_device_traceback():
-    """Meshed DEVICE traceback: pallas (interpret) forward + the
-    shard_mapped lockstep walk over the batch axis, oracle-exact."""
+    """Meshed DEVICE traceback: the fused forward + find-max + lockstep
+    walk shard_mapped over the batch axis, oracle-exact."""
     import numpy as np
 
     from gam_ngs_tpu.ops.bsw_batch import BswEngine
     from gam_ngs_tpu.ops.bsw_ref import bsw_align
 
     mesh = device_mesh(8)
-    eng = BswEngine(band=20, mesh=mesh, backend="pallas",
-                    traceback="device")
+    eng = BswEngine(band=20, mesh=mesh, backend="xla",
+                    traceback="device", fetch="edits")
     rng = np.random.default_rng(32)
     probs = []
     for k in range(13):
@@ -396,7 +395,7 @@ def test_engine_mesh_resident_arena():
     from gam_ngs_tpu.ops.bsw_ref import bsw_align
 
     mesh = device_mesh(8)
-    eng = BswEngine(band=20, mesh=mesh, backend="pallas",
+    eng = BswEngine(band=20, mesh=mesh, backend="xla",
                     traceback="device", fetch="edits")
     rng = np.random.default_rng(41)
     contigs = [rng.integers(0, 5, size=int(rng.integers(80, 220))).astype(

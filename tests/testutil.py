@@ -260,3 +260,79 @@ def write_real_bai(bam_path: str) -> None:
             out.append(struct.pack("<Q", v))
     with open(bam_path + ".bai", "wb") as fh:
         fh.write(b"".join(out))
+
+
+def parity_problems():
+    """Banded-SW parity set: (main, negative-begin) problem lists.
+
+    main: 48 problems in one padded bucket (XW=256) mixing force_start /
+    force_end / N codes / indels; x_size <= FORCE_MAXGAP_LEN force_end
+    windows, where the reference's unsigned bound (banded_smith_
+    waterman.cc:201) must null the alignment; force_start lanes
+    crossing the FORCE_MAXGAP_LEN fresh/forced boundary (:116); short
+    windows (x_size 11..40).  neg: 16 begin_a < 0 tail windows
+    (PctgBuilder.cc:1549), kept apart so the main set also runs as a
+    batch of ordinary problems only."""
+    rng = np.random.default_rng(7)
+    main, neg = [], []
+    for k in range(48):
+        n = int(rng.integers(180, 250))
+        a = rng.integers(0, 5, size=n).astype(np.uint8)
+        b = a.copy()
+        noise = rng.random(n) < 0.08
+        b[noise] = (b[noise] + 1 + rng.integers(0, 3, noise.sum())) % 4
+        if k % 3 == 0:  # indel
+            cut = n // 2
+            b = np.concatenate([b[:cut], b[cut + 7:]]).astype(np.uint8)
+        fs, fe = k % 4 == 1, k % 4 == 2
+        eb = len(b) - 1
+        if k % 6 == 5:  # force_end underflow window (x_size <= 10)
+            eb = int(rng.integers(1, 10))
+            fe = True
+        elif k % 6 == 4:  # short window
+            eb = int(rng.integers(11, 40))
+        main.append((a, 0, n - 1, b, 0, eb, fs, fe))
+    for k in range(16):
+        n = int(rng.integers(150, 240))
+        a = rng.integers(0, 4, size=n).astype(np.uint8)
+        b = np.concatenate([rng.integers(0, 4, 40).astype(np.uint8),
+                            a[:170].copy()])
+        ba = -int(rng.integers(5, 80))
+        neg.append((a, ba, n - 1, b, 0, len(b) - 1, False, k % 2 == 0))
+    return main, neg
+
+
+def bucket_problems(rng: np.random.Generator, x_size: int, n: int,
+                    band: int = 150):
+    """n random band-width problems of one window length: a noisy copy
+    of `a` with indels, so the optimum stays inside the band."""
+    out = []
+    for k in range(n):
+        a = rng.integers(0, 4, size=x_size + 40).astype(np.uint8)
+        b = a[20:20 + x_size].copy()
+        flip = rng.random(x_size) < 0.05
+        b[flip] = (b[flip] + 1) % 4
+        if x_size > 60:
+            cut = int(rng.integers(10, x_size - 20))
+            b = np.concatenate([b[:cut], b[cut + 3:], a[:3]]).astype(
+                np.uint8)
+        out.append((a, 0, len(a) - 1, b, 0, len(b) - 1, k % 5 == 1,
+                    k % 7 == 2))
+    return out
+
+
+def same_alignment(got, want, lean: bool) -> bool:
+    """Exact agreement on score, begins, homology, length and, with the
+    edit string fetched, the edits; lean results on first/last match."""
+    from gam_ngs_tpu.ops.editops import first_match_pos, last_match_pos
+
+    same = (got.score == want.score and got.begin_a == want.begin_a
+            and got.begin_b == want.begin_b
+            and got.homology == want.homology
+            and got.length == want.length)
+    if lean:
+        return (same and first_match_pos(got) == first_match_pos(want)
+                and last_match_pos(got) == last_match_pos(want))
+    if want.edits is not None and got.edits is not None:
+        return same and list(got.edits) == list(want.edits)
+    return same
